@@ -3,16 +3,16 @@ aggregation ops."""
 import numpy as np
 import pytest
 
-from sgp_tpu.analysis import az_whiteness_test
-from sgp_tpu.data import SpatioTemporalDataset, Windowing
-from sgp_tpu.data.aggregation import (spatial_aggregate, temporal_aggregate,
-                                      temporal_mean)
-from sgp_tpu.data.imputation import (ImputationDataset, add_missing_values,
-                                     sample_mask)
-from sgp_tpu.graph import Graph, coalesce
-from sgp_tpu.obs import StepTimer, Throughput, time_fn
-from sgp_tpu.train.metrics import (masked_pinball, metric_at_steps,
-                                   masked_mae, multi_loss)
+from sgp.analysis import az_whiteness_test
+from sgp.data import SpatioTemporalDataset, Windowing
+from sgp.data.aggregation import (spatial_aggregate, temporal_aggregate,
+                                  temporal_mean)
+from sgp.data.imputation import (ImputationDataset, add_missing_values,
+                                 sample_mask)
+from sgp.graph import Graph, coalesce
+from sgp.obs import StepTimer, Throughput, time_fn
+from sgp.train.metrics import (masked_pinball, metric_at_steps,
+                               masked_mae, multi_loss)
 
 
 def test_az_whiteness_white_noise(rng):

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.models.dcrnn import DCRNNModel
-from sgp_tpu.models.gated_gn import (GatedGraphNetworkConvModel,
-                                     GatedGraphNetworkMLPModel)
-from sgp_tpu.models.graph_layers import (DiffConv, GatedGraphNetwork,
-                                         diff_conv_support)
-from sgp_tpu.models.gwnet import GraphWaveNetModel
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.models.dcrnn import DCRNNModel
+from sgp.models.gated_gn import (GatedGraphNetworkConvModel,
+                                 GatedGraphNetworkMLPModel)
+from sgp.models.graph_layers import (DiffConv, GatedGraphNetwork,
+                                     diff_conv_support)
+from sgp.models.gwnet import GraphWaveNetModel
 
 pytestmark = pytest.mark.slow
 
@@ -73,7 +73,7 @@ def test_dcrnn_cell_shared_hops_parity(rng, graph):
     three-independent-DiffConv GRU cell (diffusion is channel-separable,
     so sharing the [x,h] hops and reusing the x-block for the candidate
     is exact, not approximate)."""
-    from sgp_tpu.models.dcrnn import DCRNNCell
+    from sgp.models.dcrnn import DCRNNCell
     sup = diff_conv_support(graph, operator_mode="dense")
     x = jnp.asarray(rng.standard_normal((2, 10, 4)).astype(np.float32))
     h = jnp.asarray(rng.standard_normal((2, 10, 16)).astype(np.float32))
@@ -159,7 +159,7 @@ def test_gated_gn_ell_matches_coo(rng):
     """The scatter-free ELL aggregation (padded_incoming) computes the
     same function as the COO gather/segment-sum path with the SAME
     params (both layouts share the parameter structure)."""
-    from sgp_tpu.graph.sparse import Graph, coalesce, padded_incoming
+    from sgp.graph.sparse import Graph, coalesce, padded_incoming
 
     n = 12
     g = coalesce(Graph(rng.integers(0, n, 60).astype(np.int32),
@@ -179,12 +179,12 @@ def test_gated_gn_ell_matches_coo(rng):
 
 
 def test_gated_gn_dense_adj_matches_coo(rng):
-    """The dense all-pairs MXU aggregation (adj=) computes the same
+    """The dense all-pairs matmul aggregation (adj=) computes the same
     function AND gradients as the COO gather/segment-sum path with the
     SAME params (all layouts share the parameter structure). Weighted
     edges count as present (messages are unweighted, like the edge
     path)."""
-    from sgp_tpu.graph.sparse import Graph, coalesce
+    from sgp.graph.sparse import Graph, coalesce
 
     n = 12
     g = coalesce(Graph(rng.integers(0, n, 60).astype(np.int32),
@@ -219,7 +219,7 @@ def test_gated_gn_dense_adj_matches_coo(rng):
 def test_gated_gn_model_dense_adj_matches_edges(rng):
     """Model-level: GatedGraphNetworkMLPModel(adj=) equals the explicit
     edge-list forward with identical params."""
-    from sgp_tpu.graph.sparse import Graph, coalesce
+    from sgp.graph.sparse import Graph, coalesce
 
     n = 9
     g = coalesce(Graph(rng.integers(0, n, 40).astype(np.int32),
@@ -239,7 +239,7 @@ def test_gated_gn_model_dense_adj_matches_edges(rng):
 
 def test_gated_gn_model_ell_matches_coo(rng):
     """Model-level: full forward with neigh= equals src/dst ."""
-    from sgp_tpu.graph.sparse import Graph, coalesce, padded_incoming
+    from sgp.graph.sparse import Graph, coalesce, padded_incoming
 
     n = 10
     g = coalesce(Graph(rng.integers(0, n, 40).astype(np.int32),

@@ -3,10 +3,10 @@ same result serves as the race-detection analog)."""
 import numpy as np
 import pytest
 
-from sgp_tpu.data import (SpatioTemporalDataset, StandardScaler,
-                          WindowedLoader, Windowing)
-from sgp_tpu.models import SGPModel
-from sgp_tpu.train import Predictor
+from sgp.data import (SpatioTemporalDataset, StandardScaler,
+                      WindowedLoader, Windowing)
+from sgp.models import SGPModel
+from sgp.train import Predictor
 
 
 def make_setup(rng, seed=0):
@@ -102,9 +102,9 @@ def test_async_checkpointer_matches_sync(rng, tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from sgp_tpu.models.sgp import SGPModel
-    from sgp_tpu.train.checkpoint import (AsyncCheckpointer,
-                                          restore_run_state)
+    from sgp.models.sgp import SGPModel
+    from sgp.train.checkpoint import (AsyncCheckpointer,
+                                      restore_run_state)
 
     model = SGPModel(input_size=8, order=2, n_nodes=6, hidden_size=16,
                      mlp_size=8, output_size=1, n_layers=1, horizon=2,
@@ -131,7 +131,7 @@ def test_async_checkpointer_matches_sync(rng, tmp_path):
 
 
 def test_async_checkpointer_raises_writer_error(tmp_path):
-    from sgp_tpu.train.checkpoint import AsyncCheckpointer
+    from sgp.train.checkpoint import AsyncCheckpointer
 
     def boom(*a, **k):
         raise RuntimeError("disk full")
@@ -144,3 +144,30 @@ def test_async_checkpointer_raises_writer_error(tmp_path):
     ok = AsyncCheckpointer(save_fn=lambda *a, **k: None)
     ok.save("y")
     ok.wait()
+
+
+def test_tree_bytes_round_trip_and_mismatch():
+    """Pytrees (params, optax state, bf16 leaves) survive the path-keyed
+    numpy archive exactly; a template with another shape or leaf set is
+    refused."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from sgp.train.checkpoint import tree_from_bytes, tree_to_bytes
+    params = {"a": {"kernel": jnp.arange(6.0).reshape(2, 3)},
+              "b": jnp.ones(4, jnp.bfloat16)}
+    opt_state = optax.adam(1e-3).init(params)
+    tree = {"params": params, "opt": opt_state}
+    back = tree_from_bytes(tree, tree_to_bytes(tree))
+    for x, y in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(back)):
+        assert np.asarray(x).dtype == np.asarray(y).dtype
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    data = tree_to_bytes(params)
+    with pytest.raises(ValueError, match="shape"):
+        tree_from_bytes({**params, "b": jnp.ones(5, jnp.bfloat16)}, data)
+    with pytest.raises(ValueError, match="no leaf"):
+        tree_from_bytes({**params, "c": jnp.ones(1)}, data)
+    with pytest.raises(ValueError, match="not in the template"):
+        tree_from_bytes({"a": params["a"]}, data)

@@ -1,29 +1,30 @@
-"""Config parity guard: every key in all 31 ported YAMLs must map to a
-known flag of its runner (the reference enforces the same —
-``parser_utils.py:30-33``), and the YAML merge must apply."""
+"""Config parity guard: every key in all 31 ported configs (TOML) must
+map to a known flag of its runner (the reference enforces the same —
+``parser_utils.py:30-33``), and the config merge must apply."""
 import glob
+import json
 import os
+import tomllib
 
 import pytest
-import yaml
 
-from sgp_tpu.exp.common import load_config
-from sgp_tpu.utils.config import config as global_config
+from sgp.exp.common import load_config
+from sgp.utils.config import config as global_config
 
 CONFIG_DIR = global_config["config_dir"]
 
 
 def _parser_for(path: str):
-    from sgp_tpu.exp.run_closed_form import configure_parser as p_cf
-    from sgp_tpu.exp.run_traffic_baselines import configure_parser as p_bl
-    from sgp_tpu.exp.run_traffic_sgp import configure_parser as p_sgp
+    from sgp.exp.run_closed_form import configure_parser as p_cf
+    from sgp.exp.run_traffic_baselines import configure_parser as p_bl
+    from sgp.exp.run_traffic_sgp import configure_parser as p_sgp
     name = os.path.basename(path)
     if name.startswith("gesn"):
         return p_cf()
     if name.startswith("sgp"):
         parser = p_sgp()
         # flags added by the largescale __main__ entry
-        from sgp_tpu.exp.common import str2bool
+        from sgp.exp.common import str2bool
         parser.add_argument("--iid-stratified", type=str2bool,
                             default=False)
         parser.add_argument("--times-per-batch", type=int, default=32)
@@ -31,30 +32,52 @@ def _parser_for(path: str):
     return p_bl()
 
 
-ALL_CONFIGS = sorted(glob.glob(os.path.join(CONFIG_DIR, "*", "*.yaml")))
+ALL_CONFIGS = sorted(glob.glob(os.path.join(CONFIG_DIR, "*", "*.toml")))
+CONFIG_IDS = [os.path.relpath(p, CONFIG_DIR) for p in ALL_CONFIGS]
 
 
 def test_all_31_configs_present():
     assert len(ALL_CONFIGS) == 31
 
 
-@pytest.mark.parametrize("path", ALL_CONFIGS,
-                         ids=[os.path.relpath(p, CONFIG_DIR)
-                              for p in ALL_CONFIGS])
+@pytest.mark.parametrize("path", ALL_CONFIGS, ids=CONFIG_IDS)
 def test_config_keys_map_to_flags(path):
-    cfg = yaml.safe_load(open(path))
+    with open(path, "rb") as fp:
+        cfg = tomllib.load(fp)
     parser = _parser_for(path)
     defaults = vars(parser.parse_args([]))
     unknown = [k for k in cfg if k not in defaults]
     assert not unknown, f"{path}: unknown config keys {unknown}"
 
 
-def test_yaml_merge_applies():
-    cfg = load_config("traffic/sgp_la.yaml")
+@pytest.mark.parametrize("path", ALL_CONFIGS, ids=CONFIG_IDS)
+def test_config_round_trip(path, tmp_path, monkeypatch):
+    """TOML -> runner flags -> the run's JSON record keeps every value
+    and its type."""
+    from sgp.exp.common import Experiment
+    monkeypatch.setitem(global_config, "logs_dir", str(tmp_path))
+    cfg = load_config(os.path.relpath(path, CONFIG_DIR))
+    captured = {}
+
+    def run_fn(args):
+        captured.update(vars(args))
+
+    Experiment(run_fn, _parser_for(path)).run(["--config", path])
+    (record,) = glob.glob(str(tmp_path / "**" / "exp_config.json"),
+                          recursive=True)
+    with open(record) as fp:
+        stored = json.load(fp)
+    for k, v in cfg.items():
+        assert captured[k] == v and type(captured[k]) is type(v), k
+        assert stored[k] == v and type(stored[k]) is type(v), k
+
+
+def test_config_merge_applies():
+    cfg = load_config("traffic/sgp_la.toml")
     assert cfg["reservoir_size"] == 64
     assert cfg["lr_milestones"] == [40, 80, 120]
-    parser = _parser_for(os.path.join(CONFIG_DIR, "traffic/sgp_la.yaml"))
-    from sgp_tpu.exp.common import Experiment
+    parser = _parser_for(os.path.join(CONFIG_DIR, "traffic/sgp_la.toml"))
+    from sgp.exp.common import Experiment
 
     captured = {}
 
@@ -62,7 +85,7 @@ def test_yaml_merge_applies():
         captured.update(vars(args))
         return None
 
-    Experiment(run_fn, parser).run(["--config", "traffic/sgp_la.yaml",
+    Experiment(run_fn, parser).run(["--config", "traffic/sgp_la.toml",
                                     "--seed", "1"])
     assert captured["reservoir_size"] == 64
     assert captured["hidden_size"] == 960
@@ -73,10 +96,10 @@ def test_hyperopt_through_runner():
     """The search harness drives a real runner config dict."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from sgp_tpu.exp.hyperopt import run_search
-    from sgp_tpu.exp.run_traffic_sgp import (configure_parser,
-                                             run_experiment)
-    from sgp_tpu.exp.common import Experiment
+    from sgp.exp.hyperopt import run_search
+    from sgp.exp.run_traffic_sgp import (configure_parser,
+                                         run_experiment)
+    from sgp.exp.common import Experiment
 
     base = ["--dataset-name", "synthetic", "--synthetic-nodes", "16",
             "--synthetic-steps", "200", "--epochs", "1",
@@ -96,7 +119,7 @@ def test_hyperopt_through_runner():
 
 def test_hyperopt_parallel_workers():
     """n_workers>1 runs all trials and picks the same best as serial."""
-    from sgp_tpu.exp.hyperopt import run_search
+    from sgp.exp.hyperopt import run_search
 
     def run_fn(cfg):
         return {"test_mae": abs(cfg["h"] - 12)}

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from sgp_tpu.data import (AtTimeStepSplitter, IIDLoader, RobustScaler,
-                          SpatioTemporalDataset, StandardScaler,
-                          TemporalSplitter, WindowedLoader, Windowing,
-                          datetime_encoded)
-from sgp_tpu.data.datasets import SyntheticDiffusion
+from sgp.data import (AtTimeStepSplitter, IIDLoader, RobustScaler,
+                      SpatioTemporalDataset, StandardScaler,
+                      TemporalSplitter, WindowedLoader, Windowing,
+                      datetime_encoded)
+from sgp.data.datasets import SyntheticDiffusion
 
 
 # -- scalers ---------------------------------------------------------------
@@ -54,7 +54,7 @@ def test_windowing_counts():
 
 
 def test_windowing_lag():
-    # horizon 22 lag 7 -> 4 eval steps (sgp_pv.yaml semantics)
+    # horizon 22 lag 7 -> 4 eval steps (sgp_pv.toml semantics)
     w = Windowing(window=1, horizon=22, horizon_lag=7)
     assert w.horizon_steps == 4
     np.testing.assert_array_equal(w.horizon_offsets(), 1 + np.array([0, 7, 14, 21]))

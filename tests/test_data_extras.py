@@ -3,9 +3,9 @@ benchmark loader plumbing."""
 import numpy as np
 import pytest
 
-from sgp_tpu.data import SpatioTemporalDataset, Windowing
-from sgp_tpu.data.splitters import datetime_onehot
-from sgp_tpu.graph import Graph, coalesce
+from sgp.data import SpatioTemporalDataset, Windowing
+from sgp.data.splitters import datetime_onehot
+from sgp.graph import Graph, coalesce
 
 
 def make_ds(rng, t=40, n=6):
@@ -65,7 +65,7 @@ def test_datetime_onehot():
 
 
 def test_mts_benchmark_loader(rng, tmp_path):
-    from sgp_tpu.data.datasets.mts_benchmarks import ElectricityBenchmark
+    from sgp.data.datasets.mts_benchmarks import ElectricityBenchmark
     root = tmp_path / "ElectricityBenchmark"
     root.mkdir()
     vals = rng.random((100, 5)).astype(np.float32)
@@ -79,7 +79,7 @@ def test_mts_benchmark_loader(rng, tmp_path):
 
 
 def test_holidays_onehot():
-    from sgp_tpu.data.splitters import holidays_onehot
+    from sgp.data.splitters import holidays_onehot
     index = (np.datetime64("2021-12-24T00:00")
              + np.arange(5 * 24) * np.timedelta64(1, "h")
              ).astype("datetime64[ns]")
@@ -92,8 +92,8 @@ def test_disjoint_months_window_disjoint():
     """disjoint_months: items fully inside the months vs fully outside;
     straddlers dropped from both (tsl splitters.py:287-312)."""
     import numpy as np
-    from sgp_tpu.data import (SpatioTemporalDataset, Windowing,
-                              disjoint_months)
+    from sgp.data import (SpatioTemporalDataset, Windowing,
+                          disjoint_months)
     t = 24 * 90                       # ~3 months hourly from Jan 1
     index = (np.datetime64("2020-01-01T00:00")
              + np.arange(t) * np.timedelta64(1, "h"))
@@ -118,8 +118,8 @@ def test_disjoint_months_window_disjoint():
 
 def test_disjoint_months_splitter():
     import numpy as np
-    from sgp_tpu.data import (DisjointMonthsSplitter,
-                              SpatioTemporalDataset, Windowing)
+    from sgp.data import (DisjointMonthsSplitter,
+                          SpatioTemporalDataset, Windowing)
     t = 24 * 120
     index = (np.datetime64("2020-01-01T00:00")
              + np.arange(t) * np.timedelta64(1, "h"))
@@ -137,7 +137,7 @@ def test_disjoint_months_splitter():
 
 def test_dummy_graph():
     import numpy as np
-    from sgp_tpu.graph import dummy_graph
+    from sgp.graph import dummy_graph
     assert dummy_graph("none", 5) is None
     ident = dummy_graph("identity", 5)
     assert ident.num_edges == 5 and np.all(ident.src == ident.dst)

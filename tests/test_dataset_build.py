@@ -1,7 +1,7 @@
-"""Build-from-raw dataset pipelines on tiny synthetic raw fixtures
-(VERDICT round-1 Next-8): distance-CSV -> adjacency matrix; CER zip
-archives -> pivoted 30-min frame; end-to-end loads through the built
-files (portable h5py HDF layout — pytables is unavailable here)."""
+"""Build-from-raw dataset pipelines on tiny synthetic raw fixtures:
+distance-CSV -> adjacency matrix; CER zip archives -> pivoted 30-min
+frame; end-to-end loads through the built files (portable h5py HDF
+layout — pytables is unavailable here)."""
 import os
 from datetime import timedelta
 from zipfile import ZipFile
@@ -11,8 +11,8 @@ import pytest
 
 
 def test_build_distance_matrix(tmp_path):
-    from sgp_tpu.data.datasets.build import (build_distance_matrix,
-                                             read_sensor_ids)
+    from sgp.data.datasets.build import (build_distance_matrix,
+                                         read_sensor_ids)
     ids_txt = tmp_path / "sensor_ids_la.txt"
     ids_txt.write_text("101,202,303")
     csv = tmp_path / "distances_la.csv"
@@ -39,8 +39,8 @@ def _write_cer_zip(path, meter_ids, codes, rng):
 
 
 def test_build_cer_en_and_load(tmp_path, rng):
-    from sgp_tpu.data.datasets.build import CER_START, build_cer_en
-    from sgp_tpu.data.datasets.cer_en import CEREn
+    from sgp.data.datasets.build import CER_START, build_cer_en
+    from sgp.data.datasets.cer_en import CEREn
 
     # day 195, slots 1..4 (+ an invalid slot 50 that must be dropped)
     codes = [19501, 19502, 19503, 19504, 19550]
@@ -63,7 +63,7 @@ def test_build_cer_en_and_load(tmp_path, rng):
 
 def test_cer_en_builds_from_zips_on_demand(tmp_path, rng):
     """CEREn with only the raw zips present triggers the build."""
-    from sgp_tpu.data.datasets.cer_en import CEREn
+    from sgp.data.datasets.cer_en import CEREn
     _write_cer_zip(str(tmp_path / "File1.txt.zip"), [7, 8],
                    [10001, 10002], rng)
     ds = CEREn(root=str(tmp_path))
@@ -72,8 +72,8 @@ def test_cer_en_builds_from_zips_on_demand(tmp_path, rng):
 
 
 def test_metr_la_builds_dist_from_csv(tmp_path, rng):
-    from sgp_tpu.data.datasets.build import save_frame_h5
-    from sgp_tpu.data.datasets.metr_la import MetrLA
+    from sgp.data.datasets.build import save_frame_h5
+    from sgp.data.datasets.metr_la import MetrLA
 
     ids = [11, 22, 33]
     t = 24
@@ -95,8 +95,8 @@ def test_metr_la_builds_dist_from_csv(tmp_path, rng):
 def test_pv_us_loads_h5py_layout(tmp_path, rng):
     import h5py
 
-    from sgp_tpu.data.datasets.build import save_frame_h5
-    from sgp_tpu.data.datasets.pv_us import PvUS
+    from sgp.data.datasets.build import save_frame_h5
+    from sgp.data.datasets.pv_us import PvUS
 
     t = 12
     index = np.datetime64("2006-01-01T00:00") \

@@ -1,7 +1,7 @@
-"""Multi-host (2-process) jax.distributed smoke test on CPU
-(VERDICT round-1 Next-10): ``init_distributed`` via the runner flags'
-code path, a global mesh spanning both processes, and a cross-process
-collective (global sum over a process-sharded array)."""
+"""Multi-host (2-process) jax.distributed smoke test on CPU:
+``init_distributed`` via the runner flags' code path, a global mesh
+spanning both processes, and a cross-process collective (global sum
+over a process-sharded array)."""
 import os
 import socket
 import subprocess
@@ -20,7 +20,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from sgp_tpu.parallel import init_distributed
+from sgp.parallel import init_distributed
 
 port, pid = sys.argv[1], int(sys.argv[2])
 n = init_distributed(f"127.0.0.1:{port}", 2, pid)
@@ -43,7 +43,7 @@ def _free_port():
         return s.getsockname()[1]
 
 
-@pytest.mark.skipif(os.environ.get("SGP_TPU_SKIP_DIST") == "1",
+@pytest.mark.skipif(os.environ.get("SGP_SKIP_DIST") == "1",
                     reason="distributed smoke disabled")
 def test_two_process_distributed_cpu(tmp_path):
     worker = tmp_path / "worker.py"

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.data import SpatioTemporalDataset, StandardScaler, Windowing
-from sgp_tpu.encode import (GESNEncoder, GraphESN, Reservoir, SGPEncoder,
-                            SGPSpatialEncoder, SGPTemporalEncoder,
-                            encode_dataset, sgp_spatial_embedding,
-                            sgp_spatial_support)
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.ops.linalg import spectral_radius_exact
+from sgp.data import SpatioTemporalDataset, StandardScaler, Windowing
+from sgp.encode import (GESNEncoder, GraphESN, Reservoir, SGPEncoder,
+                        SGPSpatialEncoder, SGPTemporalEncoder,
+                        encode_dataset, sgp_spatial_embedding,
+                        sgp_spatial_support)
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.ops.linalg import spectral_radius_exact
 
 
 def make_weights(rng, sizes, alpha=0.9):
@@ -107,7 +107,7 @@ def test_spatial_embedding_bidirectional(rng):
     x = rng.standard_normal((2, g.num_nodes, 2)).astype(np.float32)
     res = sgp_spatial_embedding(jnp.asarray(x), g, k=2, bidirectional=True)
     assert len(res) == 1 + 2 + 2
-    from sgp_tpu.graph import transpose
+    from sgp.graph import transpose
     at = normalize_adj(transpose(g), "row").to_dense()
     np.testing.assert_allclose(np.asarray(res[3]),
                                np.einsum("ij,tjf->tif", at, x), atol=1e-4)
@@ -117,7 +117,7 @@ def test_spatial_embedding_undirected(rng):
     g = toy_graph(rng)
     x = rng.standard_normal((2, g.num_nodes, 2)).astype(np.float32)
     res = sgp_spatial_embedding(jnp.asarray(x), g, k=1, undirected=True)
-    from sgp_tpu.graph import to_undirected
+    from sgp.graph import to_undirected
     a = normalize_adj(to_undirected(g), "sym").to_dense()
     np.testing.assert_allclose(np.asarray(res[1]),
                                np.einsum("ij,tjf->tif", a, x), atol=1e-4)
@@ -169,9 +169,9 @@ def numpy_gesn(ws, x, a):
 
 def test_gesn_matches_numpy(rng):
     g = toy_graph(rng)
-    from sgp_tpu.graph import add_self_loops
+    from sgp.graph import add_self_loops
     gn = normalize_adj(add_self_loops(g), "row")
-    from sgp_tpu.ops import build_operator
+    from sgp.ops import build_operator
     ws = make_weights(rng, [(3, 6), (6, 6)])
     x = rng.standard_normal((15, g.num_nodes, 3)).astype(np.float32)
     gesn = GraphESN.from_arrays(ws)
@@ -237,7 +237,7 @@ def test_streaming_encode_matches_oneshot(rng):
     """Fused streaming encode (reservoir state carried across chunks)
     must equal the one-shot encoder cast to the same dtype, including
     a non-divisible tail chunk and bidirectional + global_attr."""
-    from sgp_tpu.encode import streaming_encode
+    from sgp.encode import streaming_encode
     g = toy_graph(rng)
     x = jnp.asarray(rng.standard_normal((13, g.num_nodes, 2)),
                     jnp.float32)
@@ -259,8 +259,8 @@ def test_streaming_encode_packed_lanes(rng):
     """extra_lanes rides along each chunk: the output must equal
     pack_iid_data(encoded, target, mask) built from the separate
     one-shot encode."""
-    from sgp_tpu.encode import streaming_encode
-    from sgp_tpu.train.iid import pack_iid_data
+    from sgp.encode import streaming_encode
+    from sgp.train.iid import pack_iid_data
     g = toy_graph(rng)
     t, c = 12, 2
     x = jnp.asarray(rng.standard_normal((t, g.num_nodes, 2)), jnp.float32)
@@ -282,7 +282,7 @@ def test_streaming_encode_prebuilt_ops(rng):
     """ops= (build_streaming_ops) must give the same output as the
     per-call build — repeat callers prebuild once to avoid re-uploading
     the dense operator through the device link every call."""
-    from sgp_tpu.encode import build_streaming_ops, streaming_encode
+    from sgp.encode import build_streaming_ops, streaming_encode
     g = toy_graph(rng)
     x = jnp.asarray(rng.standard_normal((9, g.num_nodes, 2)), jnp.float32)
     enc = SGPEncoder(input_size=2, reservoir_size=4, reservoir_layers=1,
@@ -298,7 +298,7 @@ def test_wavefront_matches_sequential(rng):
     identical recurrence to the sequential scan at every chunk shape
     (ragged final chunk included), for outputs, carried states, and
     return_last_state."""
-    from sgp_tpu.encode.reservoir import Reservoir, reservoir_scan
+    from sgp.encode.reservoir import Reservoir, reservoir_scan
 
     res = Reservoir(input_size=5, hidden_size=16, num_layers=3, seed=3)
     for t in (7, 255, 256, 257, 300):

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.data.patterns import broadcast, check_pattern, parse_pattern
-from sgp_tpu.ops.functional import (expand_then_cat, gated_tanh,
-                                    reverse_tensor, sparse_multi_head_attention,
-                                    sparse_softmax)
+from sgp.data.patterns import broadcast, check_pattern, parse_pattern
+from sgp.ops.functional import (expand_then_cat, gated_tanh,
+                                reverse_tensor, sparse_multi_head_attention,
+                                sparse_softmax)
 
 
 def test_expand_then_cat(rng):

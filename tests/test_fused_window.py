@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from sgp_tpu.data import ScalerParams
-from sgp_tpu.data.sgp_loader import build_support_operators
-from sgp_tpu.graph import Graph, coalesce
-from sgp_tpu.models import SGPModel
-from sgp_tpu.train.fused_window import make_fused_window_step
+from sgp.data import ScalerParams
+from sgp.data.sgp_loader import build_support_operators
+from sgp.graph import Graph, coalesce
+from sgp.models import SGPModel
+from sgp.train.fused_window import make_fused_window_step
 import pytest
 
 pytestmark = pytest.mark.slow
@@ -67,11 +67,11 @@ def test_fused_window_with_support(rng):
 def test_fused_eval_matches_loader_eval(rng):
     """One-dispatch fused eval == the loader-based Predictor.evaluate
     on the same split (incl. non-divisible item count -> padding)."""
-    from sgp_tpu.data import (SpatioTemporalDataset, StandardScaler,
-                              WindowedLoader, Windowing)
-    from sgp_tpu.train import Predictor
-    from sgp_tpu.train.fused_window import make_fused_eval
-    from sgp_tpu.train.metrics import MaskedMetrics
+    from sgp.data import (SpatioTemporalDataset, StandardScaler,
+                          WindowedLoader, Windowing)
+    from sgp.train import Predictor
+    from sgp.train.fused_window import make_fused_eval
+    from sgp.train.metrics import MaskedMetrics
 
     t, n, c = 90, 6, 1
     data = rng.standard_normal((t, n, c)).astype(np.float32)

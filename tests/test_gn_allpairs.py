@@ -1,47 +1,72 @@
-"""Fused Pallas all-pairs GatedGN aggregation vs the jnp oracle.
+"""GatedGN dense all-pairs aggregation (the blocked-XLA ``adj=`` path of
+``GatedGraphNetwork``) vs a plain-jnp oracle and the edge-list layer.
 
-Runs the kernel in interpreter mode on the CPU mesh (tests/conftest.py
-forces ``jax_platforms=cpu``); the real-chip path is exercised by
-``bench.py --section baseline3:gatedgn_full``.
+The layer's aggregated messages are read back through
+``apply(..., mutable=["intermediates"])``; the oracle recomputes them
+from the same parameters by materializing every ``[N, N]`` pair.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.ops.gn_allpairs import (gn_allpairs_aggregate,
-                                     gn_allpairs_reference)
+from sgp.graph.sparse import Graph, coalesce
+from sgp.models.blocks import get_activation
+from sgp.models.graph_layers import GatedGraphNetwork
 
 
-def _setup(seed, n=20, b=2, h2=8, h=16, dtype=jnp.float32):
+def gn_allpairs_reference(p_i, p_j, mask, w2, b2, wg, bg,
+                          activation: str = "silu"):
+    """Pure-jnp oracle (small N only: materializes [B, N, N, h])."""
+    act = get_activation(activation)
+    s = p_i[..., :, None, :] + p_j[..., None, :, :]
+    mb = act(act(s) @ w2 + b2)
+    g = jax.nn.sigmoid(mb @ wg + bg)
+    keep = (mask != 0).astype(jnp.float32)
+    return jnp.einsum("ij,...ijh->...ih", keep,
+                      (g * mb).astype(jnp.float32))
+
+
+def _setup(seed, n=20, b=2, f=8, h=16, activation="silu", dtype=None,
+           mask_p=0.3):
     rng = np.random.default_rng(seed)
-    p_i = jnp.asarray(rng.standard_normal((b, n, h2)), dtype)
-    p_j = jnp.asarray(rng.standard_normal((b, n, h2)), dtype)
-    mask = jnp.asarray(rng.random((n, n)) < 0.3, jnp.float32)
-    w2 = jnp.asarray(rng.standard_normal((h2, h)) * 0.4, dtype)
-    b2 = jnp.asarray(rng.standard_normal(h) * 0.1, dtype)
-    wg = jnp.asarray(rng.standard_normal((h, 1)) * 0.4, dtype)
-    bg = jnp.asarray(rng.standard_normal(1) * 0.1, dtype)
-    return p_i, p_j, mask, w2, b2, wg, bg
+    x = jnp.asarray(rng.standard_normal((b, n, f)).astype(np.float32))
+    adj = jnp.asarray((rng.random((n, n)) < mask_p).astype(np.float32))
+    layer = GatedGraphNetwork(output_size=h, activation=activation,
+                              dtype=dtype)
+    params = layer.init(jax.random.PRNGKey(seed), x, adj=adj)
+    return layer, params, x, adj
+
+
+def layer_aggregate(layer, params, x, **kw):
+    _, state = layer.apply(params, x, mutable=["intermediates"], **kw)
+    return state["intermediates"]["aggregate"][0]
+
+
+def oracle_aggregate(params, x, adj, activation="silu"):
+    p = params["params"]
+    p_i = x @ p["Dense_0"]["kernel"] + p["Dense_0"]["bias"]
+    p_j = x @ p["Dense_1"]["kernel"]
+    return gn_allpairs_reference(
+        p_i, p_j, adj, p["Dense_2"]["kernel"], p["Dense_2"]["bias"],
+        p["Dense_3"]["kernel"], p["Dense_3"]["bias"], activation)
 
 
 @pytest.mark.parametrize("activation", ["silu", "tanh", "relu", "elu"])
 def test_forward_matches_reference(activation):
-    args = _setup(0)
-    got = gn_allpairs_aggregate(*args, activation, True)
-    want = gn_allpairs_reference(*args, activation=activation)
+    layer, params, x, adj = _setup(0, activation=activation)
+    got = layer_aggregate(layer, params, x, adj=adj)
+    want = oracle_aggregate(params, x, adj, activation)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
 
 def test_forward_padding_and_masked_rows():
     # n NOT a block multiple and one node with no incoming edges
-    args = list(_setup(1, n=13))
-    mask = np.array(args[2])
-    mask[5, :] = 0.0
-    args[2] = jnp.asarray(mask)
-    got = gn_allpairs_aggregate(*args, "silu", True)
-    want = gn_allpairs_reference(*args)
+    layer, params, x, adj = _setup(1, n=13)
+    adj = adj.at[5, :].set(0.0)
+    got = layer_aggregate(layer, params, x, adj=adj)
+    want = oracle_aggregate(params, x, adj)
     assert got.shape == want.shape == (2, 13, 16)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
@@ -50,69 +75,60 @@ def test_forward_padding_and_masked_rows():
 
 @pytest.mark.parametrize("activation", ["silu", "tanh"])
 def test_gradients_match_reference(activation):
-    p_i, p_j, mask, w2, b2, wg, bg = _setup(2, n=12, b=1)
+    layer, params, x, adj = _setup(2, n=12, b=1, activation=activation)
 
-    def loss_kernel(p_i, p_j, w2, b2, wg, bg):
-        out = gn_allpairs_aggregate(p_i, p_j, mask, w2, b2, wg, bg,
-                                    activation, True)
+    def loss_layer(p, x):
+        out = layer_aggregate(layer, p, x, adj=adj)
         return jnp.sum(out * jnp.cos(out))   # non-trivial cotangent
 
-    def loss_ref(p_i, p_j, w2, b2, wg, bg):
-        out = gn_allpairs_reference(p_i, p_j, mask, w2, b2, wg, bg,
-                                    activation=activation)
+    def loss_ref(p, x):
+        out = oracle_aggregate(p, x, adj, activation)
         return jnp.sum(out * jnp.cos(out))
 
-    gk = jax.grad(loss_kernel, argnums=(0, 1, 2, 3, 4, 5))(
-        p_i, p_j, w2, b2, wg, bg)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2, 3, 4, 5))(
-        p_i, p_j, w2, b2, wg, bg)
-    for a, b, name in zip(gk, gr, ["p_i", "p_j", "w2", "b2", "wg",
-                                   "bg"]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=5e-5, atol=5e-5,
-            err_msg=f"grad mismatch: {name}")
+    gl = jax.grad(loss_layer, argnums=(0, 1))(params, x)
+    gr = jax.grad(loss_ref, argnums=(0, 1))(params, x)
+    for name in ("Dense_0", "Dense_1", "Dense_2", "Dense_3"):
+        for leaf in gl[0]["params"][name]:
+            np.testing.assert_allclose(
+                np.asarray(gl[0]["params"][name][leaf]),
+                np.asarray(gr[0]["params"][name][leaf]),
+                rtol=5e-5, atol=5e-5, err_msg=f"{name}/{leaf}")
+    np.testing.assert_allclose(np.asarray(gl[1]), np.asarray(gr[1]),
+                               rtol=5e-5, atol=5e-5, err_msg="x")
 
 
 def test_gradients_under_jit_and_batch():
-    p_i, p_j, mask, w2, b2, wg, bg = _setup(3, n=9, b=3)
+    layer, params, x, adj = _setup(3, n=9, b=3)
 
     @jax.jit
-    def loss(p_i, w2):
-        out = gn_allpairs_aggregate(p_i, p_j, mask, w2, b2, wg, bg,
-                                    "silu", True)
-        return jnp.mean(out ** 2)
+    def loss(p, x):
+        return jnp.mean(layer_aggregate(layer, p, x, adj=adj) ** 2)
 
-    gk = jax.grad(loss, argnums=(0, 1))(p_i, w2)
+    def loss_ref(p, x):
+        return jnp.mean(oracle_aggregate(p, x, adj) ** 2)
 
-    def loss_ref(p_i, w2):
-        out = gn_allpairs_reference(p_i, p_j, mask, w2, b2, wg, bg)
-        return jnp.mean(out ** 2)
-
-    gr = jax.grad(loss_ref, argnums=(0, 1))(p_i, w2)
-    np.testing.assert_allclose(np.asarray(gk[0]), np.asarray(gr[0]),
+    gl = jax.grad(loss, argnums=(0, 1))(params, x)
+    gr = jax.grad(loss_ref, argnums=(0, 1))(params, x)
+    np.testing.assert_allclose(np.asarray(gl[1]), np.asarray(gr[1]),
                                rtol=5e-5, atol=5e-5)
-    np.testing.assert_allclose(np.asarray(gk[1]), np.asarray(gr[1]),
-                               rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(
+        np.asarray(gl[0]["params"]["Dense_2"]["kernel"]),
+        np.asarray(gr[0]["params"]["Dense_2"]["kernel"]),
+        rtol=5e-5, atol=5e-5)
 
 
-def test_bf16_inputs_close_to_f32_oracle():
-    args32 = _setup(4, n=16)
-    args16 = [a.astype(jnp.bfloat16) for a in args32[:2]] + \
-        [args32[2]] + [a for a in args32[3:]]
-    got = gn_allpairs_aggregate(*args16, "silu", True)
-    want = gn_allpairs_reference(*args32)
+def test_bf16_messages_close_to_f32_oracle():
+    layer, params, x, adj = _setup(4, n=16, dtype=jnp.bfloat16)
+    got = layer_aggregate(layer, params, x, adj=adj)
+    want = oracle_aggregate(params, x, adj)
     assert got.dtype == jnp.float32
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=0.05, atol=0.05)
 
 
-def test_layer_pallas_path_matches_edge_list():
-    """GatedGraphNetwork(adj=) through the FORCED Pallas kernel equals
-    the explicit edge-list forward/backward with identical params."""
-    from sgp_tpu.graph.sparse import Graph, coalesce
-    from sgp_tpu.models import graph_layers
-    from sgp_tpu.models.graph_layers import GatedGraphNetwork
-
+def test_layer_allpairs_path_matches_edge_list():
+    """GatedGraphNetwork(adj=) (blocked all-pairs) equals the explicit
+    edge-list forward/backward with identical params."""
     rng = np.random.default_rng(7)
     n = 12
     g = coalesce(Graph(rng.integers(0, n, 60).astype(np.int32),
@@ -126,26 +142,19 @@ def test_layer_pallas_path_matches_edge_list():
 
     out_coo = layer.apply(params, x, jnp.asarray(g.src),
                           jnp.asarray(g.dst))
-    graph_layers.ALLPAIRS_PALLAS = True      # force kernel (interpret)
-    try:
-        out_pl = layer.apply(params, x, adj=adj)
-
-        def loss_pl(p):
-            return (layer.apply(p, x, adj=adj) ** 2).sum()
-
-        g_pl = jax.grad(loss_pl)(params)
-    finally:
-        graph_layers.ALLPAIRS_PALLAS = None
-    np.testing.assert_allclose(np.asarray(out_pl), np.asarray(out_coo),
+    out_ap = layer.apply(params, x, adj=adj)
+    np.testing.assert_allclose(np.asarray(out_ap), np.asarray(out_coo),
                                rtol=2e-5, atol=2e-5)
+
+    def loss_ap(p):
+        return (layer.apply(p, x, adj=adj) ** 2).sum()
 
     def loss_coo(p):
         return (layer.apply(p, x, jnp.asarray(g.src),
                             jnp.asarray(g.dst)) ** 2).sum()
 
-    g_coo = jax.grad(loss_coo)(params)
-    for a, b in zip(jax.tree_util.tree_leaves(g_pl),
-                    jax.tree_util.tree_leaves(g_coo)):
+    for a, b in zip(jax.tree_util.tree_leaves(jax.grad(loss_ap)(params)),
+                    jax.tree_util.tree_leaves(jax.grad(loss_coo)(params))):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-4)
 
@@ -154,8 +163,7 @@ def test_layer_banded_allpairs_matches_full_sweep():
     """adj_band (RCM band windows) == the full N^2 sweep == the edge
     list, values AND grads — the windows cover every edge by
     construction."""
-    from sgp_tpu.graph.sparse import Graph, band_windows, coalesce
-    from sgp_tpu.models.graph_layers import GatedGraphNetwork
+    from sgp.graph.sparse import band_windows
 
     rng = np.random.default_rng(11)
     n = 64

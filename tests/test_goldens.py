@@ -1,4 +1,4 @@
-"""Committed golden end-to-end values (VERDICT round-1 Next-7): a
+"""Committed golden end-to-end values: a
 fixed-seed synthetic SGP run (encode -> fused train -> fused test eval)
 asserted against stored metrics, and closed-form DynGESN asserted
 against BOTH stored metrics and an independent float64 numpy
@@ -6,7 +6,7 @@ ridge oracle (sklearn-Ridge semantics: centered normal equations)."""
 import numpy as np
 import pytest
 
-from sgp_tpu.exp.common import Experiment
+from sgp.exp.common import Experiment
 
 pytestmark = pytest.mark.slow
 
@@ -30,8 +30,8 @@ CF_GOLDEN = {"test_mae": 2.939038, "test_mse": 23.763903,
 
 
 def test_golden_sgp_traffic_fused():
-    from sgp_tpu.exp.run_traffic_sgp import (configure_parser,
-                                             run_experiment)
+    from sgp.exp.run_traffic_sgp import (configure_parser,
+                                         run_experiment)
     res = Experiment(run_experiment, configure_parser()).run(
         list(SGP_ARGS))
     for k, v in SGP_GOLDEN.items():
@@ -39,8 +39,8 @@ def test_golden_sgp_traffic_fused():
 
 
 def test_golden_closed_form():
-    from sgp_tpu.exp.run_closed_form import (configure_parser,
-                                             run_experiment)
+    from sgp.exp.run_closed_form import (configure_parser,
+                                         run_experiment)
     res = Experiment(run_experiment, configure_parser()).run(
         list(CF_ARGS))
     for k, v in CF_GOLDEN.items():
@@ -51,7 +51,7 @@ def test_closed_form_matches_numpy_float64_oracle(rng):
     """Device ridge (streaming f32 Gram + Cholesky, sklearn intercept
     semantics) == an independent float64 numpy exact solve
     (``experiments/run_closed_form.py:191-196`` sklearn-Ridge parity)."""
-    from sgp_tpu.train import ridge_regression
+    from sgp.train import ridge_regression
 
     n, d, c = 600, 17, 3
     x = rng.standard_normal((n, d)).astype(np.float32)

@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from sgp_tpu.graph import (Graph, add_self_loops, coalesce, k_hop_subgraph,
-                           normalize_adj, remove_self_loops, spgemm,
-                           to_undirected, transpose, weighted_degree)
-from sgp_tpu.graph.similarities import (correntropy, gaussian_kernel,
-                                        geographical_distance,
-                                        pearson_similarity, top_k)
+from sgp.graph import (Graph, add_self_loops, coalesce, k_hop_subgraph,
+                       normalize_adj, remove_self_loops, spgemm,
+                       to_undirected, transpose, weighted_degree)
+from sgp.graph.similarities import (correntropy, gaussian_kernel,
+                                    geographical_distance,
+                                    pearson_similarity, top_k)
 
 
 def random_graph(rng, n=23, e=80):
@@ -142,9 +142,9 @@ def test_top_k():
 
 def test_rcm_reordering_reduces_blocks(rng):
     """RCM ordering concentrates a geometric graph's edges near the
-    diagonal -> fewer 128-blocks for the Pallas BSR kernel to touch."""
-    from sgp_tpu.graph.sparse import permute_nodes, rcm_order
-    from sgp_tpu.graph.similarities import top_k
+    diagonal -> fewer 128-blocks for the BSR SpMM to touch."""
+    from sgp.graph.sparse import permute_nodes, rcm_order
+    from sgp.graph.similarities import top_k
     n = 512
     pos = rng.random((n, 2)).astype(np.float32)
     d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
@@ -170,7 +170,7 @@ def test_auto_band_localized_vs_shuffled():
     """auto_band returns variable-width windows for a banded (road)
     labeling and None for a shuffled one (no locality to exploit) or
     past the host-densify node guard."""
-    from sgp_tpu.graph.sparse import auto_band, band_graph
+    from sgp.graph.sparse import auto_band, band_graph
 
     g = band_graph(2000, 4)
     band = auto_band(g, block=128)
@@ -179,7 +179,7 @@ def test_auto_band_localized_vs_shuffled():
     # shuffled labels: same graph, no band structure
     rng = np.random.default_rng(0)
     perm = rng.permutation(2000)
-    from sgp_tpu.graph.sparse import Graph
+    from sgp.graph.sparse import Graph
     g2 = Graph(perm[g.src], perm[g.dst], g.weight, 2000)
     assert auto_band(g2, block=128) is None
     assert auto_band(g, max_nodes=100) is None

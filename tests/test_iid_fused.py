@@ -5,10 +5,10 @@ import numpy as np
 import optax
 import pytest
 
-from sgp_tpu.data import (ScalerParams, SpatioTemporalDataset, StandardScaler,
-                          Windowing)
-from sgp_tpu.models import SGPModel
-from sgp_tpu.train.iid import fused_iid_inputs, make_fused_iid_step
+from sgp.data import (ScalerParams, SpatioTemporalDataset, StandardScaler,
+                      Windowing)
+from sgp.models import SGPModel
+from sgp.train.iid import fused_iid_inputs, make_fused_iid_step
 
 
 def test_fused_iid_learns(rng):
@@ -91,7 +91,7 @@ def test_fused_iid_node_level_exog_gathers_own_node(rng):
                      rng.standard_normal((t, n, d)).astype(np.float32))
     ds.set_input_keys(["encoded_x"])
     ds.exog_keys = ["target_scaled"]  # node-level exog (keep_raw path)
-    from sgp_tpu.train.iid import fused_iid_inputs
+    from sgp.train.iid import fused_iid_inputs
     enc, tgt, mask, valid, h_off, u = fused_iid_inputs(ds)
     assert u is not None and u.ndim == 3
     # capture what u the model receives by making the model's output
@@ -112,8 +112,8 @@ def test_bsr_operator_inside_jit(rng):
     host-side prep used to run on tracers and crash)."""
     import jax
     import jax.numpy as jnp
-    from sgp_tpu.graph import Graph, coalesce, normalize_adj
-    from sgp_tpu.ops import build_operator
+    from sgp.graph import Graph, coalesce, normalize_adj
+    from sgp.ops import build_operator
     g = normalize_adj(coalesce(Graph(
         rng.integers(0, 200, 1500), rng.integers(0, 200, 1500),
         rng.random(1500).astype(np.float32), 200)), "row")
@@ -135,9 +135,9 @@ def test_stratified_features_match_precompute(rng):
     (time, node) pairs — pinned by replicating the in-step assembly."""
     import jax
     import jax.numpy as jnp
-    from sgp_tpu.data.sgp_loader import apply_support, build_support_operators
-    from sgp_tpu.graph import Graph, coalesce
-    from sgp_tpu.ops import GlobalMeanOperator
+    from sgp.data.sgp_loader import apply_support, build_support_operators
+    from sgp.graph import Graph, coalesce
+    from sgp.ops import GlobalMeanOperator
     t, n, h_dim = 40, 10, 4
     g = coalesce(Graph(rng.integers(0, n, 40), rng.integers(0, n, 40),
                        rng.random(40).astype(np.float32), n))
@@ -160,9 +160,9 @@ def test_stratified_step_matches_precomputed_semantics(rng):
     """On-the-fly propagation in the stratified step gives the same
     features a precomputed (k+1)x embedding would."""
     import optax
-    from sgp_tpu.data.sgp_loader import build_support_operators
-    from sgp_tpu.graph import Graph, coalesce
-    from sgp_tpu.train.iid import make_fused_iid_stratified_step
+    from sgp.data.sgp_loader import build_support_operators
+    from sgp.graph import Graph, coalesce
+    from sgp.train.iid import make_fused_iid_stratified_step
     t, n, h_dim = 80, 12, 6
     g = coalesce(Graph(rng.integers(0, n, 50), rng.integers(0, n, 50),
                        rng.random(50).astype(np.float32), n))
@@ -211,8 +211,8 @@ def test_stratified_gather_spmm_matches_full_propagation(rng):
     the same RNG stream — same t/n draws, same values."""
     import jax
     import jax.numpy as jnp
-    from sgp_tpu.data.sgp_loader import build_support_operators
-    from sgp_tpu.graph import Graph, coalesce
+    from sgp.data.sgp_loader import build_support_operators
+    from sgp.graph import Graph, coalesce
 
     t, n, h_dim, tb, p = 60, 14, 5, 4, 6
     g = coalesce(Graph(rng.integers(0, n, 60), rng.integers(0, n, 60),
@@ -248,14 +248,14 @@ def test_stratified_gather_spmm_matches_full_propagation(rng):
 
 
 def test_stratified_assembly_modes_agree(rng):
-    """``assembly='full_prop'`` (square-GEMM + row gather, the TPU fast
+    """``assembly='full_prop'`` (square-GEMM + row gather, the large-GEMM
     path) must produce the same training trajectory as
     ``assembly='gather_rows'`` for the same RNG stream; bf16 supports
     stay close."""
     import optax
-    from sgp_tpu.data.sgp_loader import build_support_operators
-    from sgp_tpu.graph import Graph, coalesce
-    from sgp_tpu.train.iid import make_fused_iid_stratified_step
+    from sgp.data.sgp_loader import build_support_operators
+    from sgp.graph import Graph, coalesce
+    from sgp.train.iid import make_fused_iid_stratified_step
 
     t, n, h_dim = 50, 10, 4
     g = coalesce(Graph(rng.integers(0, n, 40), rng.integers(0, n, 40),
@@ -294,7 +294,7 @@ def test_stratified_assembly_modes_agree(rng):
 def test_pack_iid_data_roundtrip_bitexact(rng):
     """f32 targets split into two bf16 lanes must reconstruct the EXACT
     bits; masks survive; rows line up with (t, n) indexing."""
-    from sgp_tpu.train.iid import pack_iid_data, unpack_iid_rows
+    from sgp.train.iid import pack_iid_data, unpack_iid_rows
     t, n, d, c = 30, 7, 8, 2
     h_off = np.array([1, 4, 9])
     enc = rng.standard_normal((t, n, d)).astype(np.float32)
@@ -358,7 +358,7 @@ def test_fused_iid_gather_block_semantics(rng):
     indices must form aligned G-blocks, and the step must train."""
     import optax
 
-    from sgp_tpu.train.iid import _build_iid_sample_and_loss
+    from sgp.train.iid import _build_iid_sample_and_loss
     t, n, d, g = 60, 12, 8, 4
     enc = jnp.asarray(rng.standard_normal((t, n, d)), jnp.bfloat16)
     tgt = jnp.asarray(rng.standard_normal((t, n, 1)).astype(np.float32))
@@ -404,8 +404,8 @@ def test_fused_iid_gather_block_semantics(rng):
 def test_fused_iid_gather_block_node_perm(rng):
     """With a shuffled packed layout + node_perm, sampled rows must
     still pair with their ORIGINAL node ids (embedding/scaler rows)."""
-    from sgp_tpu.train.iid import (_build_iid_sample_and_loss,
-                                   pack_iid_data)
+    from sgp.train.iid import (_build_iid_sample_and_loss,
+                               pack_iid_data)
     t, n, d, g = 40, 12, 8, 4
     enc = jnp.asarray(rng.standard_normal((t, n, d)), jnp.bfloat16)
     tgt = jnp.asarray(rng.standard_normal((t, n, 1)).astype(np.float32))
@@ -438,7 +438,7 @@ def test_fused_iid_gather_block_node_perm(rng):
 
 
 def test_fused_iid_gather_block_validates(rng):
-    from sgp_tpu.train.iid import make_fused_iid_step
+    from sgp.train.iid import make_fused_iid_step
     import optax
     enc = jnp.zeros((20, 10, 4), jnp.bfloat16)
     tgt = jnp.zeros((20, 10, 1))
@@ -466,9 +466,9 @@ def test_fused_iid_packed_falls_back_for_non_bf16(rng):
     features."""
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.train.iid import make_fused_iid_step
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.train.iid import make_fused_iid_step
 
     t, n, d = 40, 6, 8
     model = SGPModel(input_size=d, order=2, n_nodes=n, hidden_size=8,
@@ -493,7 +493,7 @@ def test_fused_iid_packed_falls_back_for_non_bf16(rng):
 
 
 def _tiny_iid_setup(rng, t=60, n=6, d=8, packed=True):
-    from sgp_tpu.train.iid import pack_iid_data
+    from sgp.train.iid import pack_iid_data
 
     target = rng.standard_normal((t, n, 1)).astype(np.float32)
     mask = np.ones((t, n, 1), bool)
@@ -520,7 +520,7 @@ def _tiny_iid_setup(rng, t=60, n=6, d=8, packed=True):
 def test_pipelined_multi_step_matches_unpipelined(rng):
     """pipeline=True must be a pure scheduling change: identical loss
     and parameter trajectory to the sequential scan (same keys)."""
-    from sgp_tpu.train.iid import make_fused_iid_multi_step
+    from sgp.train.iid import make_fused_iid_multi_step
 
     (model, opt, params, opt_state, tgt, msk, valid, h_off, sc,
      pk) = _tiny_iid_setup(rng)
@@ -542,7 +542,7 @@ def test_pipelined_multi_step_matches_unpipelined(rng):
 def test_compute_dtype_bf16_trains(rng):
     """bf16 fwd/bwd keeps f32 master params and stays close to the
     f32 step's loss on the same keys."""
-    from sgp_tpu.train.iid import make_fused_iid_multi_step
+    from sgp.train.iid import make_fused_iid_multi_step
 
     (model, opt, params, opt_state, tgt, msk, valid, h_off, sc,
      pk) = _tiny_iid_setup(rng)

@@ -8,15 +8,15 @@ import numpy as np
 import optax
 import pytest
 
-from sgp_tpu.data import ScalerParams
-from sgp_tpu.models import SGPModel
-from sgp_tpu.train.fused_window import make_fused_eval
-from sgp_tpu.train.iid import make_fused_iid_step
-from sgp_tpu.train.multi_trial import (best_trial, eval_trials,
-                                       init_trial_params,
-                                       make_fused_iid_multi_trial_step,
-                                       take_trial)
-from sgp_tpu.train.metrics import MaskedMetrics
+from sgp.data import ScalerParams
+from sgp.models import SGPModel
+from sgp.train.fused_window import make_fused_eval
+from sgp.train.iid import make_fused_iid_step
+from sgp.train.multi_trial import (best_trial, eval_trials,
+                                   init_trial_params,
+                                   make_fused_iid_multi_trial_step,
+                                   take_trial)
+from sgp.train.metrics import MaskedMetrics
 
 pytestmark = pytest.mark.slow
 

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from sgp_tpu import native
-from sgp_tpu.graph import Graph, coalesce, k_hop_subgraph, normalize_adj
+from sgp import native
+from sgp.graph import Graph, coalesce, k_hop_subgraph, normalize_adj
 
 pytestmark = pytest.mark.skipif(not native.AVAILABLE,
                                 reason="native graphcore not built")

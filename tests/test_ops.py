@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.ops import (build_operator, power_iteration_spectral_radius,
-                         segment_mean, segment_softmax, segment_sum, spmm)
-from sgp_tpu.ops.linalg import spectral_radius_exact
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.ops import (build_operator, power_iteration_spectral_radius,
+                     segment_mean, segment_softmax, segment_sum, spmm)
+from sgp.ops.linalg import spectral_radius_exact
 
 
 def random_graph(rng, n=50, e=300):
@@ -56,7 +56,7 @@ def test_bsr_spmm_with_empty_block_rows(rng):
 
 
 def test_global_mean_operator(rng):
-    from sgp_tpu.ops import GlobalMeanOperator
+    from sgp.ops import GlobalMeanOperator
     x = rng.standard_normal((4, 10, 3)).astype(np.float32)
     out = np.asarray(GlobalMeanOperator(10) @ jnp.asarray(x))
     expect = np.broadcast_to(x.mean(axis=-2, keepdims=True), x.shape)
@@ -100,17 +100,20 @@ def test_power_iteration_matches_eigvals(rng):
     assert abs(approx - exact) / exact < 1e-3
 
 
-@pytest.mark.parametrize("variant", ["xla", "pallas"])
-def test_bsr_variants_match_oracle(rng, variant):
-    """Both BSR execution variants (XLA batched-matmul and the Pallas
-    kernel) compute the same product."""
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_bsr_variants_match_oracle(rng, precision):
+    """BSR SpMM with f32 block storage (precision 'highest') and bf16
+    block storage (precision 'default', f32 accumulation) against the
+    dense f32 product."""
     g = random_graph(rng, n=300, e=3000)
     x = rng.standard_normal((g.num_nodes, 96)).astype(np.float32)
     expect = g.to_dense() @ x
-    op = build_operator(g, "bsr")
-    op._variant = variant
+    op = build_operator(g, "bsr", precision=precision)
+    assert op.blocks.dtype == (jnp.float32 if precision == "highest"
+                               else jnp.bfloat16)
+    atol = 1e-4 if precision == "highest" else 0.1
     out = np.asarray(spmm(op, jnp.asarray(x)))
-    np.testing.assert_allclose(out, expect, atol=1e-4)
+    np.testing.assert_allclose(out, expect, atol=atol)
     # and through a jit boundary as a pytree argument
     out2 = np.asarray(jax.jit(lambda o, v: o @ v)(op, jnp.asarray(x)))
-    np.testing.assert_allclose(out2, expect, atol=1e-4)
+    np.testing.assert_allclose(out2, expect, atol=atol)

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.ops import build_operator
-from sgp_tpu.parallel import (make_mesh, shard_batch, shard_operator,
-                              shard_params_tp, sharded_ridge, sharded_spmm)
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.ops import build_operator
+from sgp.parallel import (make_mesh, shard_batch, shard_operator,
+                          shard_params_tp, sharded_ridge, sharded_spmm)
 
 pytestmark = [pytest.mark.slow,
               pytest.mark.skipif(len(jax.devices()) < 8,
@@ -59,7 +59,7 @@ def test_dp_tp_train_step_matches_single_device(rng):
 
 
 def test_sharded_ridge_matches_dense(rng):
-    from sgp_tpu.train import ridge_regression
+    from sgp.train import ridge_regression
     mesh = make_mesh(8, 1)
     x = rng.standard_normal((800, 12)).astype(np.float32)
     y = rng.standard_normal((800, 2)).astype(np.float32)
@@ -83,8 +83,8 @@ def test_shard_batch_shapes(rng):
 def _iid_setup(rng, t=100, n=16, d=8):
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
 
     encoded = jnp.asarray(rng.standard_normal((t, n, d)).astype(np.float32))
     target = jnp.asarray(rng.standard_normal((t, n, 1)).astype(np.float32))
@@ -104,7 +104,7 @@ def _iid_setup(rng, t=100, n=16, d=8):
 def test_sharded_iid_step_runs_and_is_replicated(rng):
     """DP fused IID step over the data axis: executes, loss finite, and
     params remain bit-identical across devices after the update."""
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     mesh = make_mesh(8, 1)
     t, n = 100, 16
@@ -123,8 +123,8 @@ def test_sharded_iid_step_runs_and_is_replicated(rng):
 
 def test_sharded_iid_memory_is_node_sharded(rng):
     """Each device holds ~1/n of every big array — multi-chip scales
-    memory capacity (VERDICT round-1 Next-1), not just FLOPs."""
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    memory capacity, not just FLOPs."""
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     mesh = make_mesh(8, 1)
     t, n = 100, 16
@@ -145,8 +145,8 @@ def test_sharded_iid_matches_single_device_emulation(rng):
     emulation of the same per-shard RNG streams and masked reduction."""
     import optax
 
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
-    from sgp_tpu.train.metrics import _METRIC_FNS, _masked_reduce
+    from sgp.parallel.sharding import make_sharded_iid_step
+    from sgp.train.metrics import _METRIC_FNS, _masked_reduce
 
     mesh = make_mesh(8, 1)
     t, n, d = 100, 16, 8
@@ -200,9 +200,9 @@ def test_sharded_iid_padded_nodes_are_masked(rng):
     and the step still runs with a finite loss."""
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     mesh = make_mesh(8, 1)
     t, n, d = 60, 13, 8    # 13 -> pads to 16
@@ -234,7 +234,7 @@ def test_sharded_iid_packed_matches_unpacked(rng):
     samples, bf16 features identical, targets bit-exact via hi/lo."""
     import optax
 
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     mesh = make_mesh(8, 1)
     t = 100
@@ -260,7 +260,7 @@ def test_sharded_iid_packed_matches_unpacked(rng):
 def test_sharded_iid_packed_is_node_sharded(rng):
     """The packed wide-row array is still 1/n per device (pack after
     shard preserves the node sharding)."""
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     mesh = make_mesh(8, 1)
     t = 100
@@ -280,11 +280,11 @@ def test_sharded_eval_matches_fused_eval(rng):
     """Node-sharded fused eval == single-device make_fused_eval on the
     same params (non-divisible N exercises node padding; per-node
     scaler exercises index_nodes inside the shard)."""
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel import make_sharded_iid_eval
-    from sgp_tpu.train import MaskedMetrics
-    from sgp_tpu.train.fused_window import make_fused_eval
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel import make_sharded_iid_eval
+    from sgp.train import MaskedMetrics
+    from sgp.train.fused_window import make_fused_eval
 
     t, n, f, h = 40, 21, 6, 3
     enc = rng.standard_normal((t, n, f)).astype(np.float32)
@@ -328,11 +328,11 @@ def test_sharded_eval_matches_fused_eval(rng):
 def test_sharded_eval_packed_x_slice(rng):
     """Sharded eval over a PACKED row layout (x_slice) == sharded eval
     over the unpacked encoding, and the packed array stays 1/n/device."""
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel import make_sharded_iid_eval
-    from sgp_tpu.train import MaskedMetrics
-    from sgp_tpu.train.iid import pack_iid_data
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel import make_sharded_iid_eval
+    from sgp.train import MaskedMetrics
+    from sgp.train.iid import pack_iid_data
 
     t, n, f, h = 30, 24, 4, 2
     enc = jnp.asarray(
@@ -374,10 +374,10 @@ def test_sharded_window_step_matches_single_device_emulation(rng):
     the 8 per-shard RNG streams, incl. support-op propagation."""
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel import make_sharded_window_step
-    from sgp_tpu.train.metrics import _METRIC_FNS, _masked_reduce
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel import make_sharded_window_step
+    from sgp.train.metrics import _METRIC_FNS, _masked_reduce
 
     mesh = make_mesh(8, 1)
     t, n, f, h = 60, 12, 3, 2
@@ -443,11 +443,11 @@ def test_sharded_stratified_step_matches_emulation(rng):
     emulation."""
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel import make_sharded_iid_stratified_step
-    from sgp_tpu.train.iid import take_time_rows
-    from sgp_tpu.train.metrics import _METRIC_FNS, _masked_reduce
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel import make_sharded_iid_stratified_step
+    from sgp.train.iid import take_time_rows
+    from sgp.train.metrics import _METRIC_FNS, _masked_reduce
 
     mesh = make_mesh(8, 1)
     t, n, ht, h = 50, 16, 8, 2
@@ -535,11 +535,11 @@ def test_sharded_stratified_step_matches_emulation(rng):
 def test_sharded_eval_unpack_targets_matches(rng):
     """Packed-lane target unpacking (no separate target/mask arrays in
     HBM) reproduces the explicit-arrays sharded eval exactly."""
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel import make_sharded_iid_eval
-    from sgp_tpu.train import MaskedMetrics
-    from sgp_tpu.train.iid import pack_iid_data
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel import make_sharded_iid_eval
+    from sgp.train import MaskedMetrics
+    from sgp.train.iid import pack_iid_data
 
     t, n, f, h = 30, 24, 4, 2
     enc = jnp.asarray(rng.standard_normal((t, n, f)).astype(np.float32)
@@ -577,12 +577,12 @@ def test_sharded_eval_support_ops_matches_fused(rng):
     layout: all-gather only each batch's time rows, contract local
     operator row slabs) == single-device make_fused_eval with the same
     support_ops, incl. a non-dense GlobalMeanOperator."""
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.ops import GlobalMeanOperator
-    from sgp_tpu.parallel import make_sharded_iid_eval
-    from sgp_tpu.train import MaskedMetrics
-    from sgp_tpu.train.fused_window import make_fused_eval
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.ops import GlobalMeanOperator
+    from sgp.parallel import make_sharded_iid_eval
+    from sgp.train import MaskedMetrics
+    from sgp.train.fused_window import make_fused_eval
 
     t, n, ht, h = 30, 16, 6, 2
     g = graph(rng, n)
@@ -619,10 +619,10 @@ def test_predictor_mesh_dp_matches_single(rng):
     inserts the reductions; float-level agreement — reduction order may
     differ across shardings). Also covers the ragged-tail replicated
     fallback (the last loader batch)."""
-    from sgp_tpu.data import (SpatioTemporalDataset, StandardScaler,
-                              WindowedLoader, Windowing)
-    from sgp_tpu.models import RNNModel
-    from sgp_tpu.train import Predictor
+    from sgp.data import (SpatioTemporalDataset, StandardScaler,
+                          WindowedLoader, Windowing)
+    from sgp.models.rnn import RNNModel
+    from sgp.train import Predictor
 
     data = rng.standard_normal((90, 6, 1)).astype(np.float32) + 2
     ds = SpatioTemporalDataset(
@@ -653,10 +653,10 @@ def test_predictor_dp_rejects_indivisible_batch_size(rng):
     replicate EVERY batch (zero parallelism) — Predictor refuses."""
     import pytest
 
-    from sgp_tpu.data import (SpatioTemporalDataset, WindowedLoader,
-                              Windowing)
-    from sgp_tpu.models import RNNModel
-    from sgp_tpu.train import Predictor
+    from sgp.data import (SpatioTemporalDataset, WindowedLoader,
+                          Windowing)
+    from sgp.models.rnn import RNNModel
+    from sgp.train import Predictor
 
     data = rng.standard_normal((40, 6, 1)).astype(np.float32)
     ds = SpatioTemporalDataset(
@@ -672,10 +672,10 @@ def test_predictor_dp_rejects_indivisible_batch_size(rng):
 def test_predictor_mesh_dp_subgraph_batches(rng):
     """The DP mesh also handles subgraph batches (padded node/edge
     arrays + root-only loss via target_nodes)."""
-    from sgp_tpu.data import SpatioTemporalDataset, Windowing
-    from sgp_tpu.data.subgraph import SubgraphLoader
-    from sgp_tpu.models.gated_gn import GatedGraphNetworkMLPModel
-    from sgp_tpu.train import Predictor
+    from sgp.data import SpatioTemporalDataset, Windowing
+    from sgp.data.subgraph import SubgraphLoader
+    from sgp.models.gated_gn import GatedGraphNetworkMLPModel
+    from sgp.train import Predictor
 
     n = 16
     g = graph(rng, n)

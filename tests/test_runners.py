@@ -4,7 +4,7 @@ the large-scale IID path (device-resident encode + fused IID train +
 fused test eval)."""
 import numpy as np
 
-from sgp_tpu.exp.common import Experiment
+from sgp.exp.common import Experiment
 import pytest
 
 pytestmark = pytest.mark.slow
@@ -22,8 +22,8 @@ BASE = ["--dataset-name", "synthetic", "--synthetic-nodes", "12",
 
 
 def test_traffic_runner_fused_eval():
-    from sgp_tpu.exp.run_traffic_sgp import (configure_parser,
-                                             run_experiment)
+    from sgp.exp.run_traffic_sgp import (configure_parser,
+                                         run_experiment)
     res = _run(run_experiment, configure_parser,
                BASE + ["--fused", "true"])
     assert np.isfinite(res["test_mae"])
@@ -31,14 +31,14 @@ def test_traffic_runner_fused_eval():
 
 
 def test_largescale_runner_fused_eval():
-    from sgp_tpu.exp.run_largescale_sgp import (configure_parser,
-                                                run_experiment)
+    from sgp.exp.run_largescale_sgp import (configure_parser,
+                                            run_experiment)
     res = _run(run_experiment, configure_parser, list(BASE))
     assert np.isfinite(res["test_mae"])
 
 
 def test_largescale_runner_stratified():
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
     res = _run(run_experiment, configure_parser,
                BASE + ["--iid-stratified", "true"])
@@ -53,12 +53,12 @@ def test_largescale_runner_streaming_packed_matches_fallback():
     import io
     import logging
 
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     buf = io.StringIO()
     handler = logging.StreamHandler(buf)
-    logging.getLogger("sgp_tpu").addHandler(handler)
+    logging.getLogger("sgp").addHandler(handler)
     try:
         base = BASE + ["--batches-epoch", "4"]
         r1 = _run(run_experiment, configure_parser, list(base))
@@ -71,7 +71,7 @@ def test_largescale_runner_streaming_packed_matches_fallback():
         r3 = _run(run_experiment, configure_parser,
                   base + ["--encode-dtype", "float32"])
     finally:
-        logging.getLogger("sgp_tpu").removeHandler(handler)
+        logging.getLogger("sgp").removeHandler(handler)
     assert abs(r1["test_mae"] - r2["test_mae"]) < 2e-3 * r2["test_mae"]
     assert abs(r1["test_mae"] - r3["test_mae"]) < 0.05 * r3["test_mae"]
 
@@ -80,7 +80,7 @@ def test_largescale_runner_vmapped_search():
     """--search-lr/--search-seeds trains all trials in one vmapped
     program, selects on fused val MAE, reports the winner's test
     metrics plus the per-trial table."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     res = _run(run_experiment, configure_parser,
@@ -95,7 +95,7 @@ def test_largescale_runner_vmapped_search():
 def test_largescale_runner_checkpoint_resume(tmp_path):
     """Interrupted-then-resumed training reproduces the uninterrupted
     run exactly (same RNG stream, best-so-far restored)."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     ck = str(tmp_path / "state.ckpt")
@@ -112,7 +112,7 @@ def test_largescale_runner_checkpoint_resume(tmp_path):
 
 
 def test_stratified_runner_checkpoint_resume(tmp_path):
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     ck = str(tmp_path / "state.ckpt")
@@ -133,7 +133,7 @@ def test_resume_guards(tmp_path):
     vmapped search with checkpointing/stratified, fails loudly."""
     import pytest
 
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     ck = str(tmp_path / "s.ckpt")
@@ -157,7 +157,7 @@ def test_largescale_runner_data_sharding_nodes():
     """--data-sharding nodes runs the node-sharded step + eval over the
     8-device CPU mesh for BOTH encode paths (streaming-packed prebuilt
     layout and the unpacked fallback)."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     r1 = _run(run_experiment, configure_parser,
@@ -176,7 +176,7 @@ def test_largescale_runner_vmapped_search_with_exog():
     """Vmapped search with node-level exogenous (keep_raw adds the
     scaled raw series as u): exercises the u plumbing through the
     stacked init, the shared-batch step and the stacked eval."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     res = _run(run_experiment, configure_parser,
@@ -190,7 +190,7 @@ def test_stratified_runner_data_sharding_nodes():
     """--iid-stratified + --data-sharding nodes: the node-sharded
     beyond-HBM trainer and the support-ops sharded eval run end to end
     on the CPU mesh."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     res = _run(run_experiment, configure_parser,
@@ -204,7 +204,7 @@ def test_largescale_runner_data_sharding_multistep_window():
     """window>1 can't use packed-lane targets: the nodes-sharded eval
     falls back to explicit (still sharded) target/mask arrays instead
     of dying after training."""
-    from sgp_tpu.exp.run_largescale_sgp import (
+    from sgp.exp.run_largescale_sgp import (
         configure_parser_largescale as configure_parser, run_experiment)
 
     res = _run(run_experiment, configure_parser,
@@ -215,8 +215,8 @@ def test_largescale_runner_data_sharding_multistep_window():
 def test_traffic_runner_data_sharding_batch():
     """--data-sharding batch on the traffic path: DP fused windowed
     training over the 8-device CPU mesh runs end to end."""
-    from sgp_tpu.exp.run_traffic_sgp import (configure_parser,
-                                             run_experiment)
+    from sgp.exp.run_traffic_sgp import (configure_parser,
+                                         run_experiment)
 
     res = _run(run_experiment, configure_parser,
                BASE + ["--fused", "true", "--data-sharding", "batch"])
@@ -227,8 +227,8 @@ def test_traffic_runner_data_sharding_batch():
 def test_traffic_baselines_runner_dp():
     """Loader-based baseline training under the generic Predictor DP
     mesh (--data-sharding batch): full pipeline on the 8-device mesh."""
-    from sgp_tpu.exp.run_traffic_baselines import (configure_parser,
-                                                   run_experiment)
+    from sgp.exp.run_traffic_baselines import (configure_parser,
+                                               run_experiment)
 
     res = _run(run_experiment, configure_parser,
                ["--dataset-name", "synthetic", "--synthetic-nodes", "12",
@@ -243,8 +243,8 @@ def test_traffic_baselines_runner_dp():
 def test_largescale_baselines_runner_dp():
     """Subgraph-sampled GNN baseline under the Predictor DP mesh:
     shared per-batch subgraph arrays replicate, sample tensors shard."""
-    from sgp_tpu.exp.run_largescale_baselines import run_experiment
-    from sgp_tpu.exp.run_traffic_baselines import configure_parser
+    from sgp.exp.run_largescale_baselines import run_experiment
+    from sgp.exp.run_traffic_baselines import configure_parser
 
     res = _run(run_experiment, configure_parser,
                ["--dataset-name", "synthetic", "--synthetic-nodes", "16",
@@ -261,9 +261,9 @@ def test_largescale_baselines_runner_dp():
 def test_largescale_baselines_gn_aggregation_dense():
     """--gn-aggregation dense: subgraph-sampled TRAIN batches keep
     their edge lists while full-graph EVAL batches run the all-pairs
-    MXU aggregation — both branches of the forward in one run."""
-    from sgp_tpu.exp.run_largescale_baselines import run_experiment
-    from sgp_tpu.exp.run_traffic_baselines import configure_parser
+    matmul aggregation — both branches of the forward in one run."""
+    from sgp.exp.run_largescale_baselines import run_experiment
+    from sgp.exp.run_traffic_baselines import configure_parser
 
     res = _run(run_experiment, configure_parser,
                ["--dataset-name", "synthetic", "--synthetic-nodes", "16",
@@ -282,8 +282,8 @@ def test_imputation_runner():
     whiten-masked trainer runs, and the learned imputation of the
     hidden points beats the trivial relative-error bar (MRE < 1 means
     better than predicting zero/raw-mean scale)."""
-    from sgp_tpu.exp.run_imputation import (configure_parser,
-                                            run_experiment)
+    from sgp.exp.run_imputation import (configure_parser,
+                                        run_experiment)
 
     res = _run(run_experiment, configure_parser,
                ["--dataset-name", "synthetic", "--synthetic-nodes", "12",
@@ -300,8 +300,8 @@ def test_imputation_runner_rnni():
     """RNNI and BiRNNI end to end through the imputation runner: the
     autoregressive imputers train with whiten-masking and beat the
     trivial relative-error bar at the hidden points."""
-    from sgp_tpu.exp.run_imputation import (configure_parser,
-                                            run_experiment)
+    from sgp.exp.run_imputation import (configure_parser,
+                                        run_experiment)
 
     for name in ("rnni", "birnni"):
         res = _run(run_experiment, configure_parser,

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sgp_tpu.data import ScalerParams
-from sgp_tpu.encode import SGPEncoder
-from sgp_tpu.graph import Graph, coalesce
-from sgp_tpu.models import SGPModel
-from sgp_tpu.serve import OnlineForecaster
+from sgp.data import ScalerParams
+from sgp.encode import SGPEncoder
+from sgp.graph import Graph, coalesce
+from sgp.models import SGPModel
+from sgp.serve import OnlineForecaster
 import pytest
 
 pytestmark = pytest.mark.slow
@@ -89,9 +89,9 @@ def test_online_matches_offline_bf16_store(rng):
 def test_online_gesn_matches_offline(rng):
     """OnlineGESNForecaster reproduces the offline DynGESN pipeline:
     GESN encode + per-lag ridge readouts, fed step by step."""
-    from sgp_tpu.encode import GESNEncoder
-    from sgp_tpu.serve import OnlineGESNForecaster
-    from sgp_tpu.train import closed_form_readout
+    from sgp.encode import GESNEncoder
+    from sgp.serve import OnlineGESNForecaster
+    from sgp.train import closed_form_readout
 
     n, t, f, lags = 12, 30, 1, 3
     g = coalesce(Graph(rng.integers(0, n, 4 * n),
@@ -133,7 +133,7 @@ def test_online_gesn_matches_offline(rng):
 def test_export_forecaster_roundtrip(rng, tmp_path):
     """jax.export artifact: the deserialized step reproduces the live
     forecaster exactly, with no encoder/model objects at load time."""
-    from sgp_tpu.serve import export_forecaster, load_forecaster
+    from sgp.serve import export_forecaster, load_forecaster
 
     g, x_raw, enc, scaler, model, params = _setup(rng)
     fc = OnlineForecaster(enc, g, model, params, scaler)
@@ -150,8 +150,8 @@ def test_export_forecaster_roundtrip(rng, tmp_path):
 
 
 def _gesn_setup(rng, n=12, t=30, f=1, lags=3):
-    from sgp_tpu.encode import GESNEncoder
-    from sgp_tpu.train import closed_form_readout
+    from sgp.encode import GESNEncoder
+    from sgp.train import closed_form_readout
 
     g = coalesce(Graph(rng.integers(0, n, 4 * n),
                        rng.integers(0, n, 4 * n),
@@ -175,7 +175,7 @@ def _gesn_setup(rng, n=12, t=30, f=1, lags=3):
 def test_gesn_multi_stream_matches_independent(rng):
     """OnlineGESNForecaster n_streams: S streams in one dispatch == S
     independent single-stream forecasters."""
-    from sgp_tpu.serve import OnlineGESNForecaster
+    from sgp.serve import OnlineGESNForecaster
 
     g, x_raw, enc, scaler, readouts = _gesn_setup(rng)
     s = 3
@@ -201,8 +201,8 @@ def test_export_gesn_roundtrip(rng, tmp_path):
     jax.export artifact format."""
     import pytest
 
-    from sgp_tpu.serve import (OnlineGESNForecaster, export_forecaster,
-                               load_forecaster)
+    from sgp.serve import (OnlineGESNForecaster, export_forecaster,
+                           load_forecaster)
 
     g, x_raw, enc, scaler, readouts = _gesn_setup(rng)
     fc = OnlineGESNForecaster(enc, g, readouts, scaler)
@@ -222,7 +222,7 @@ def test_export_gesn_roundtrip(rng, tmp_path):
 def test_export_multi_stream_roundtrip(rng, tmp_path):
     """n_streams forecasters export with the [S, N, C] input layout
     (the stream axis must not be mistaken for the node axis)."""
-    from sgp_tpu.serve import export_forecaster, load_forecaster
+    from sgp.serve import export_forecaster, load_forecaster
 
     g, x_raw, enc, scaler, model, params = _setup(rng)
     s = 3
@@ -245,7 +245,7 @@ def test_export_with_exog(rng, tmp_path):
     error; with it, the artifact signature includes u and round-trips."""
     import pytest
 
-    from sgp_tpu.serve import export_forecaster, load_forecaster
+    from sgp.serve import export_forecaster, load_forecaster
 
     g, x_raw, enc, scaler, model, params = _setup(rng)
     f_u = 2

@@ -2,10 +2,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sgp_tpu.data import SpatioTemporalDataset, Windowing
-from sgp_tpu.data.sgp_loader import (SGPIIDLoader, SGPLoader, apply_support,
-                                     build_support_operators)
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
+from sgp.data import SpatioTemporalDataset, Windowing
+from sgp.data.sgp_loader import (SGPIIDLoader, SGPLoader, apply_support,
+                                 build_support_operators)
+from sgp.graph import Graph, coalesce, normalize_adj
 
 
 def make(rng, t=30, n=12, e=50):

@@ -1,16 +1,16 @@
 """Node-sharded whole-series encoding + node-sharded closed-form ridge
-(the multi-chip memory-scaling path, VERDICT round-1 Next-1): sharded
+(the multi-device memory-scaling path): sharded
 result == single-device result; encoding stays 1/n per device."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.encode import Reservoir
-from sgp_tpu.encode.spatial import sgp_spatial_embedding
-from sgp_tpu.graph import Graph, coalesce
-from sgp_tpu.parallel import make_mesh
-from sgp_tpu.parallel.encode import encode_series_sharded, sharded_ridge_nodes
+from sgp.encode import Reservoir
+from sgp.encode.spatial import sgp_spatial_embedding
+from sgp.graph import Graph, coalesce
+from sgp.parallel import make_mesh
+from sgp.parallel.encode import encode_series_sharded, sharded_ridge_nodes
 
 pytestmark = [pytest.mark.slow,
               pytest.mark.skipif(len(jax.devices()) < 8,
@@ -56,7 +56,7 @@ def test_encode_series_sharded_matches_single(rng, n, bidir, gattr):
 def test_sharded_ridge_nodes_matches_flat(rng):
     """Node-sharded Gram/moment ridge == single-device ridge on the
     flattened masked rows (incl. a non-divisible N with padding)."""
-    from sgp_tpu.train import ridge_regression
+    from sgp.train import ridge_regression
 
     t, n, d, c = 40, 13, 6, 2
     x = rng.standard_normal((t, n, d)).astype(np.float32)
@@ -73,7 +73,7 @@ def test_sharded_ridge_nodes_matches_flat(rng):
 
 
 def test_sharded_ridge_nodes_default_mask_ignores_padding(rng):
-    from sgp_tpu.train import ridge_regression
+    from sgp.train import ridge_regression
 
     t, n, d, c = 25, 11, 4, 1
     x = rng.standard_normal((t, n, d)).astype(np.float32)
@@ -92,9 +92,9 @@ def test_sharded_encode_feeds_sharded_iid_step(rng):
     training, nothing replicated, loss finite."""
     import optax
 
-    from sgp_tpu.data import ScalerParams
-    from sgp_tpu.models import SGPModel
-    from sgp_tpu.parallel.sharding import make_sharded_iid_step
+    from sgp.data import ScalerParams
+    from sgp.models import SGPModel
+    from sgp.parallel.sharding import make_sharded_iid_step
 
     t, n, f = 40, 21, 2
     g = make_graph(np.random.default_rng(0), n)
@@ -132,10 +132,10 @@ def test_encode_series_sharded_bf16_halo_payload(rng):
     """Compressed halo payloads through the full sharded encode match
     the f32-wire result to bf16 tolerance."""
     import jax.numpy as jnp
-    from sgp_tpu.encode import Reservoir
-    from sgp_tpu.graph import Graph, coalesce, normalize_adj
-    from sgp_tpu.parallel import make_mesh
-    from sgp_tpu.parallel.encode import encode_series_sharded
+    from sgp.encode import Reservoir
+    from sgp.graph import Graph, coalesce, normalize_adj
+    from sgp.parallel import make_mesh
+    from sgp.parallel.encode import encode_series_sharded
 
     n, t = 40, 12
     g = normalize_adj(coalesce(Graph(

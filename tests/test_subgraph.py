@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.data import SpatioTemporalDataset, Windowing
-from sgp_tpu.data.subgraph import SubgraphLoader, SubsetLoader, cap_edges
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.models.graph_layers import (diff_conv_support,
-                                         diff_conv_support_from_arrays)
+from sgp.data import SpatioTemporalDataset, Windowing
+from sgp.data.subgraph import SubgraphLoader, SubsetLoader, cap_edges
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.models.graph_layers import (diff_conv_support,
+                                     diff_conv_support_from_arrays)
 
 
 def make_ds(rng, t=50, n=30, e=200):

@@ -14,9 +14,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from sgp_tpu.encode import GraphESN, Reservoir, sgp_spatial_embedding  # noqa: E402
-from sgp_tpu.graph import Graph, add_self_loops, coalesce, normalize_adj  # noqa: E402
-from sgp_tpu.ops import build_operator  # noqa: E402
+from sgp.encode import GraphESN, Reservoir, sgp_spatial_embedding  # noqa: E402
+from sgp.graph import Graph, add_self_loops, coalesce, normalize_adj  # noqa: E402
+from sgp.ops import build_operator  # noqa: E402
 
 pytestmark = pytest.mark.slow
 
@@ -125,7 +125,7 @@ def test_gesn_activations_match_torch(rng):
 
 
 # ---------------------------------------------------------------------------
-# Trained-layer oracles (VERDICT r4 item 7): one per baseline family —
+# Trained-layer oracles: one per baseline family —
 # the reference LAYER equations executed in actual torch with the SAME
 # weights as our flax modules, full forward allclose.
 
@@ -141,7 +141,7 @@ def test_diff_conv_matches_torch_oracle():
     (``tsl/nn/layers/graph_convs/diff_conv.py:94-105``): [x, A x,
     A^2 x, A' x, A'^2 x] @ W + b executed in torch."""
     import jax
-    from sgp_tpu.models.graph_layers import DiffConv, diff_conv_support
+    from sgp.models.graph_layers import DiffConv, diff_conv_support
     n, f, out, k = 12, 5, 7, 2
     g = _random_graph_np(n)
     sup = diff_conv_support(g)
@@ -155,7 +155,7 @@ def test_diff_conv_matches_torch_oracle():
     bias = np.asarray(params["params"]["Dense_0"]["bias"])
     a_fwd = np.zeros((n, n), np.float32)
     a_fwd[g.dst, g.src] = g.weight          # row-normalized fwd
-    from sgp_tpu.graph import normalize_adj as _na, transpose as _tr
+    from sgp.graph import normalize_adj as _na, transpose as _tr
     gb = _na(_tr(g), "row")
     a_bwd = np.zeros((n, n), np.float32)
     a_bwd[gb.dst, gb.src] = gb.weight
@@ -179,7 +179,7 @@ def test_gwnet_dense_diffusion_matches_torch_oracle():
     concat (``tsl/nn/layers/graph_convs/dense_spatial_conv.py:59-80``)
     executed in torch."""
     import jax
-    from sgp_tpu.models.gwnet import DenseSpatialConvOrderK
+    from sgp.models.gwnet import DenseSpatialConvOrderK
     n, f, out, order = 10, 4, 6, 2
     rng = np.random.default_rng(2)
     adj = rng.random((n, n)).astype(np.float32)
@@ -246,7 +246,7 @@ def test_gated_gn_layer_matches_torch_oracle(layout):
     reference message/gate/update math executed in torch with identical
     weights."""
     import jax
-    from sgp_tpu.models.graph_layers import GatedGraphNetwork
+    from sgp.models.graph_layers import GatedGraphNetwork
     n, f, out = 10, 6, 8
     g = _random_graph_np(n, 40, seed=3)
     src, dst = g.src.astype(np.int32), g.dst.astype(np.int32)

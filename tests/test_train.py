@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.data import (SpatioTemporalDataset, StandardScaler,
-                          TemporalSplitter, WindowedLoader, Windowing)
-from sgp_tpu.data.datasets import SyntheticDiffusion
-from sgp_tpu.encode import SGPEncoder, encode_dataset
-from sgp_tpu.models import SGPModel
-from sgp_tpu.train import (MaskedMetrics, Predictor, masked_mae, masked_mape,
-                           masked_mre, masked_mse, ridge_regression)
-from sgp_tpu.train.metrics import MetricSpec
+from sgp.data import (SpatioTemporalDataset, StandardScaler,
+                      TemporalSplitter, WindowedLoader, Windowing)
+from sgp.data.datasets import SyntheticDiffusion
+from sgp.encode import SGPEncoder, encode_dataset
+from sgp.models import SGPModel
+from sgp.train import (MaskedMetrics, Predictor, masked_mae, masked_mape,
+                       masked_mre, masked_mse, ridge_regression)
+from sgp.train.metrics import MetricSpec
 
 
 def test_masked_metrics_oracle(rng):
@@ -112,7 +112,7 @@ def test_predictor_checkpoint_roundtrip(tmp_path, rng):
     pred = Predictor(model, lr=1e-3)
     loader = WindowedLoader(ds, batch_size=16)
     pred.fit(loader, epochs=1, scaler=ds.scaler_params(), log_every=0)
-    path = str(tmp_path / "ckpt.msgpack")
+    path = str(tmp_path / "ckpt.npz")
     pred.save(path)
     before = pred.predict(loader)
     pred.load(path)

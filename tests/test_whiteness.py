@@ -7,7 +7,7 @@ import numpy as np
 def test_residual_whiteness_monitor_flags_structure(rng):
     """Rolling serving monitor: white residuals stay unflagged, strong
     spatial correlation across edges gets flagged."""
-    from sgp_tpu.obs import ResidualWhitenessMonitor
+    from sgp.obs import ResidualWhitenessMonitor
 
     n = 20
     ring = np.stack([np.arange(n), (np.arange(n) + 1) % n])
@@ -31,9 +31,9 @@ def test_monitor_uses_graph_edge_weights(rng):
     """A weighted Graph's edge weights flow into the spatial statistic:
     the rolling result matches an offline az_whiteness_test run with the
     same weights (and differs from the unweighted one)."""
-    from sgp_tpu.analysis import az_whiteness_test
-    from sgp_tpu.graph import Graph
-    from sgp_tpu.obs import ResidualWhitenessMonitor
+    from sgp.analysis import az_whiteness_test
+    from sgp.graph import Graph
+    from sgp.obs import ResidualWhitenessMonitor
 
     n, w = 16, 12
     src = np.arange(n)
@@ -58,7 +58,7 @@ def test_monitor_rejects_window_smaller_than_min_steps():
     silently never fire — rejected loudly at construction."""
     import pytest
 
-    from sgp_tpu.obs import ResidualWhitenessMonitor
+    from sgp.obs import ResidualWhitenessMonitor
 
     ring = np.stack([np.arange(4), (np.arange(4) + 1) % 4])
     with pytest.raises(ValueError, match="min_steps"):

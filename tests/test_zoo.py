@@ -5,24 +5,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sgp_tpu.graph import Graph, coalesce, normalize_adj
-from sgp_tpu.models.attention import (AttentionEncoder,
-                                      CausalLinearAttention,
-                                      MultiHeadAttention,
-                                      PositionalEncoding,
-                                      SpatioTemporalTransformerLayer,
-                                      TransformerLayer, TransformerModel)
-from sgp_tpu.models.graph_layers import (GATConv, GraphConv,
-                                         SpatioTemporalAttention,
-                                         diff_conv_support)
-from sgp_tpu.models.grin import GRIL, GRINModel
-from sgp_tpu.models.stgn_extra import (AttPool, ConditionalTCNBlock,
-                                       DenseDCRNNCell, GCNDecoder,
-                                       GraphConvRNN, InputEncoder,
-                                       MultiHorizonMLPDecoder,
-                                       RNNEncGCNDecModel, STCNModel,
-                                       TCNModel)
-from sgp_tpu.ops import build_operator
+from sgp.graph import Graph, coalesce, normalize_adj
+from sgp.models.attention import (AttentionEncoder,
+                                  CausalLinearAttention,
+                                  MultiHeadAttention,
+                                  PositionalEncoding,
+                                  SpatioTemporalTransformerLayer,
+                                  TransformerLayer, TransformerModel)
+from sgp.models.graph_layers import (GATConv, GraphConv,
+                                     SpatioTemporalAttention,
+                                     diff_conv_support)
+from sgp.models.grin import GRIL, GRINModel
+from sgp.models.stgn_extra import (AttPool, ConditionalTCNBlock,
+                                   DenseDCRNNCell, GCNDecoder,
+                                   GraphConvRNN, InputEncoder,
+                                   MultiHorizonMLPDecoder,
+                                   RNNEncGCNDecModel, STCNModel,
+                                   TCNModel)
+from sgp.ops import build_operator
 
 
 def init_apply(model, *args, **kwargs):
@@ -200,7 +200,7 @@ def test_gril_and_grin(rng, graph):
 
 def test_imputer_train_step(rng, graph):
     import optax
-    from sgp_tpu.train.imputer import make_imputer_train_step
+    from sgp.train.imputer import make_imputer_train_step
     sup = diff_conv_support(graph, operator_mode="dense")
     model = GRINModel(input_size=1, hidden_size=8, n_nodes=8)
     x = jnp.asarray(rng.standard_normal((2, 6, 8, 1)).astype(np.float32))
@@ -221,7 +221,7 @@ def test_imputer_train_step(rng, graph):
 
 
 def test_link_predictor_and_nri(rng):
-    from sgp_tpu.models.stgn_extra import LinkPredictor, NRIDCRNN
+    from sgp.models.stgn_extra import LinkPredictor, NRIDCRNN
     x = jnp.asarray(rng.standard_normal((10, 6)).astype(np.float32))
     _, scores = init_apply(LinkPredictor(ff_size=8, hidden_size=4), x)
     assert scores.shape == (10, 10)
@@ -240,7 +240,7 @@ def test_rnni_imputer(rng):
     """RNNI autoregressive imputer: shape contract, both modes, both
     cells, and the one-step-ahead causality property — preds[t] must
     not depend on x[t:] (prediction of step t uses data up to t-1)."""
-    from sgp_tpu.models.rnni import RNNImputerModel
+    from sgp.models.rnni import RNNImputerModel
     x = jnp.asarray(rng.standard_normal((2, 6, 4, 3)).astype(np.float32))
     mask = jnp.asarray((rng.random((2, 6, 4, 3)) > 0.3)
                        .astype(np.float32))
@@ -277,7 +277,7 @@ def test_birnni_imputer(rng):
     pass gives the merged imputation access to FUTURE observations, so
     unlike the causal fwd stream the merged output at t<4 changes when
     x[4:] is perturbed."""
-    from sgp_tpu.models.rnni import BiRNNImputerModel
+    from sgp.models.rnni import BiRNNImputerModel
     x = jnp.asarray(rng.standard_normal((2, 6, 4, 3)).astype(np.float32))
     mask = jnp.asarray((rng.random((2, 6, 4, 3)) > 0.3)
                        .astype(np.float32))
@@ -301,8 +301,8 @@ def test_imputer_step_rnni(rng):
     """The generalized imputer train step drives the RNNI contracts
     (bare array and (merged, aux-tuple)) and reduces the loss."""
     import optax
-    from sgp_tpu.models.rnni import BiRNNImputerModel, RNNImputerModel
-    from sgp_tpu.train.imputer import make_imputer_train_step
+    from sgp.models.rnni import BiRNNImputerModel, RNNImputerModel
+    from sgp.train.imputer import make_imputer_train_step
     x = jnp.asarray(rng.standard_normal((4, 6, 4, 1)).astype(np.float32))
     mask = jnp.asarray((rng.random((4, 6, 4, 1)) > 0.2)
                        .astype(np.float32))
